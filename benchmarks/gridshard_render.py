@@ -1,19 +1,19 @@
-"""Round-5 grid-sharded render benchmark (round-4 VERDICT #2).
+"""Grid-sharded render benchmark.
 
-Measures, on the real chip with a 1-device mesh (collectives are free, so
-this isolates the grid-sharded SCHEDULE cost — the owner-advances phases,
-compaction, and sampling path — from ICI):
+Measures, on one GPU with a 1-device mesh (collectives are free, so this
+isolates the grid-sharded SCHEDULE cost — the owner-advances phases,
+compaction, and sampling path — from the interconnect):
 
-* 512^3: single-chip z-pair-table render (the VERDICT comparison bar),
+* 512^3: single-card z-pair-table render (the comparison bar),
   then the grid-sharded path with the slab-local corner table +
   replicated cone prepass, sweeping (steps_per_exchange, ray_chunks).
 * 1024^3: the grid-sharded path with the cone prepass over the 8-gather
   sampler (a 1024^3 slab table at 1 shard is 34 GiB — the slab table fits
   per-device from 2+ shards, where each holds 1/K of it).
 
-Run on the real chip from the repo root: ``python
-benchmarks/gridshard_render.py [512|1024|all]``. ``VGT_CPU=1``
-smoke-tests on the CPU backend.
+Run on a GPU from the repo root: ``python
+benchmarks/gridshard_render.py [512|1024|all]`` (``JAX_PLATFORMS=cpu``
+smoke-tests it on the CPU backend).
 """
 
 import json
@@ -26,12 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-if os.environ.get("VGT_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from voxelized_geometry_tools_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,7 +38,7 @@ from voxelized_geometry_tools_tpu import GridSpec
 from voxelized_geometry_tools_tpu.core.maps import SignedDistanceField
 from voxelized_geometry_tools_tpu.ops import edt, render, sdf_query
 from voxelized_geometry_tools_tpu.parallel import sharded
-from voxelized_geometry_tools_tpu.utils import force_materialize as F
+F = jax.block_until_ready
 
 IMG_W, IMG_H = 640, 480
 N_RAYS = IMG_W * IMG_H

@@ -1,6 +1,6 @@
 """Estimate-distance example: rotated grid, trilinear queries, fine gradients.
 
-TPU-native analogue of /root/reference/example/estimate_distance.cpp:42-314:
+Accelerator-native analogue of the reference's example/estimate_distance.cpp:42-314:
 a 10x10x1 m grid rotated 45 deg about Z with a scattering of filled cells,
 SDF extraction, then a dense sweep of `EstimateLocationDistance` queries over
 cell centers and subsampled points plus `GetLocationFineGradient` checks —

@@ -1,6 +1,6 @@
 """Isosurface export: occupancy -> SDF -> triangle mesh -> OBJ file.
 
-A TPU-native addition with no reference analogue (the reference displays
+An accelerator-native addition with no reference analogue (the reference displays
 voxel CUBE_LIST markers only; /root/reference/include/voxelized_geometry_tools/
 ros_interface.hpp:92-148): extract the zero level set of a signed distance
 field as a watertight triangle mesh (marching tetrahedra, ops/isosurface.py),
@@ -23,9 +23,6 @@ import tempfile
 import numpy as np
 import jax
 import jax.numpy as jnp
-
-if os.environ.get("VGT_CPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 import voxelized_geometry_tools_tpu as vgt
 from voxelized_geometry_tools_tpu.ops import edt, isosurface, mesh

@@ -1,6 +1,6 @@
 """Online mapping example: streaming depth frames -> live map -> queries.
 
-TPU-native capability beyond the reference's batch pipeline
+Accelerator-native capability beyond the reference's batch pipeline
 (/root/reference/example/pointcloud_voxelization.cpp runs one fused batch):
 a robot-style loop where depth frames arrive one at a time, each is carved
 into the running occupancy map with the column-marching DDA

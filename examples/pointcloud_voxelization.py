@@ -1,6 +1,6 @@
 """Pointcloud voxelization example: two-camera fusion on every backend.
 
-TPU-native analogue of /root/reference/example/pointcloud_voxelization.cpp:
+Accelerator-native analogue of the reference's example/pointcloud_voxelization.cpp:
 164-370: a 2 m^3 8-cell/axis grid with a filled floor, two synthetic depth
 cameras whose analytic planes shadow opposite halves of the volume, fused
 with percent_seen_free=1.0, then voxelized with EVERY available backend

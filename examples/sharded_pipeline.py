@@ -2,15 +2,14 @@
 
 The reference is a single-process library (SURVEY.md section 2's
 parallelism inventory: OpenMP loops and one GPU); this example shows the
-TPU-native scaling story that replaces it — a `jax.sharding.Mesh` over
+Accelerator-native scaling story that replaces it — a `jax.sharding.Mesh` over
 which:
 
 * rays are sharded for the carve, with per-camera tracking grids fused by
   one `psum` (`parallel/sharded.py::sharded_raycast_pointcloud`),
 * the grid is sharded by Z-slabs for the EDT, with the Z sweep transposed
-  through the interconnect via `all_to_all`
-  (`sharded_squared_edt`; on a real TPU pod pass
-  ``backend="pallas-windowed"`` for the adaptive envelope kernel),
+  through the interconnect via `all_to_all` (`sharded_squared_edt`; on a
+  GPU mesh each shard's envelope passes run the Triton kernel),
 * pixels are sharded for the differentiable render
   (`sharded_render_depth`).
 
@@ -74,9 +73,9 @@ def main():
 
     # --- 1. Ray-sharded carving + fusion ---------------------------------
     # Everything below runs under jax.jit: shard_map invoked OUTSIDE jit
-    # executes the mapped computation op by op eagerly — measured 80x
-    # slower through a remote runtime, and minutes of per-op dispatch
-    # even on the virtual CPU mesh (parallel/sharded.py module docstring).
+    # executes the mapped computation op by op eagerly — minutes of per-op
+    # dispatch even on the virtual CPU mesh (parallel/sharded.py module
+    # docstring).
     fused = jax.jit(lambda cs: sharded.sharded_voxelize_pointclouds(
         env, options, cs, mesh, run_axis=2))(clouds)
     occ = np.asarray(fused.occupancy)

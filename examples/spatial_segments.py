@@ -1,6 +1,6 @@
 """Spatial segmentation example: tagged map -> SDF watershed -> segments.
 
-TPU-native analogue of /root/reference/example/spatial_segments.cpp:39-310:
+Accelerator-native analogue of the reference's example/spatial_segments.cpp:39-310:
 a 100x100x50 tagged-object map with border walls (object 1) and a center
 block (object 2) split by empty cross-channels, segmented with
 `update_spatial_segments` at connected_threshold=1.75 both without and with

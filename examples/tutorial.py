@@ -1,6 +1,6 @@
 """Tutorial: occupancy map -> connected components -> SDF -> queries.
 
-TPU-native analogue of /root/reference/example/tutorial.cpp:22-278: builds a
+Accelerator-native analogue of the reference's example/tutorial.cpp:22-278: builds a
 10 m^3 quarter-filled OccupancyComponentMap centered at the origin, computes
 connected components, extracts a signed distance field, and runs
 index/location distance and gradient queries — printing the same kinds of

@@ -1,6 +1,6 @@
 """Voxel raycasting example: random DDA rays + count invariants.
 
-TPU-native analogue of /root/reference/example/voxel_raycasting.cpp:55-323:
+Accelerator-native analogue of the reference's example/voxel_raycasting.cpp:55-323:
 random origin/target pairs raycast through a 40^3 grid at 0.125 m resolution
 with max_range 10, checking the DDA invariants (each voxel counted at most
 once free, at most once filled, never both) and exporting a colored marker

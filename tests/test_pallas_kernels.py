@@ -1,43 +1,28 @@
-"""Exactness tests for the Pallas kernel backends (interpret mode on CPU),
+"""Exactness tests for the Triton envelope kernel (interpret mode on CPU),
 mirroring the reference's one-oracle-many-backends strategy
 (pointcloud_voxelization_test.cpp:275-295 runs the same checks on every
-available device backend)."""
+available device backend), plus the EDT's choice of backend."""
 
+import functools
+
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from voxelized_geometry_tools_tpu.ops import edt
-from voxelized_geometry_tools_tpu.kernels import edt_pallas
+from voxelized_geometry_tools_tpu.kernels import edt_triton
 
 
-@pytest.mark.parametrize("shape", [(7, 13, 37), (3, 50), (1, 1, 4), (64,)])
-def test_envelope_pallas_matches_xla(shape):
-    rng = np.random.default_rng(42)
-    f = rng.uniform(0, 50, shape).astype(np.float32)
-    f[rng.uniform(size=shape) < 0.25] = np.inf
-    ref = np.asarray(edt._parabolic_envelope_last(jnp.asarray(f)))
-    got = np.asarray(edt_pallas.parabolic_envelope_last_pallas(
-        jnp.asarray(f), tile_lines=8, interpret=True))
-    np.testing.assert_array_equal(ref, got)
+def _xla_along(f, axis):
+    return np.asarray(edt._envelope_axis(jnp.asarray(f), axis, 512, "xla"))
 
 
-def test_squared_edt_pallas_matches_xla():
-    rng = np.random.default_rng(7)
-    seed = rng.uniform(size=(24, 17, 33)) < 0.1
-    ref = np.asarray(edt.squared_edt(jnp.asarray(seed)))
-    got = np.asarray(edt_pallas.squared_edt_pallas(
-        jnp.asarray(seed), tile_lines=8, interpret=True))
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_squared_edt_pallas_empty_and_full():
-    empty = jnp.zeros((4, 5, 6), bool)
-    assert bool(jnp.all(jnp.isinf(
-        edt_pallas.squared_edt_pallas(empty, tile_lines=8, interpret=True))))
-    full = jnp.ones((4, 5, 6), bool)
-    assert bool(jnp.all(edt_pallas.squared_edt_pallas(
-        full, tile_lines=8, interpret=True) == 0.0))
+def _triton_along(f, axis, **kw):
+    kw.setdefault("tile_q", 16)
+    kw.setdefault("tile_lines", 8)
+    return np.asarray(edt_triton.envelope_along_axis(
+        jnp.asarray(f), axis, interpret=True, **kw))
 
 
 @pytest.mark.parametrize("shape", [(7, 13, 37), (3, 50), (1, 1, 4)])
@@ -45,68 +30,111 @@ def test_envelope_bestfirst_matches_xla(shape):
     rng = np.random.default_rng(3)
     f = rng.uniform(0, 300, shape).astype(np.float32)
     f[rng.uniform(size=shape) < 0.4] = np.inf
-    ref = np.asarray(edt._parabolic_envelope_last(jnp.asarray(f)))
-    got = np.asarray(edt_pallas.parabolic_envelope_last_pallas_bestfirst(
-        jnp.asarray(f), tile_lines=8, tile_q=16, interpret=True))
-    np.testing.assert_array_equal(ref, got)
+    np.testing.assert_array_equal(_xla_along(f, -1), _triton_along(f, -1))
+
+
+@pytest.mark.parametrize("shape,axis", [((7, 13, 37), 1), ((9, 40, 6), 1),
+                                        ((20, 3, 5), 0), ((2, 3, 33, 4), 2)])
+def test_envelope_bestfirst_middle_axis_matches_xla(shape, axis):
+    """Passes along a middle axis read the lines in place (no transpose)."""
+    rng = np.random.default_rng(11)
+    f = rng.uniform(0, 300, shape).astype(np.float32)
+    f[rng.uniform(size=shape) < 0.4] = np.inf
+    np.testing.assert_array_equal(_xla_along(f, axis),
+                                  _triton_along(f, axis))
 
 
 def test_bestfirst_degenerate_fields():
     for fill in (np.inf, 0.0, 1e6):
         f = np.full((6, 40), fill, np.float32)
-        ref = np.asarray(edt._parabolic_envelope_last(jnp.asarray(f)))
-        got = np.asarray(edt_pallas.parabolic_envelope_last_pallas_bestfirst(
-            jnp.asarray(f), tile_lines=8, tile_q=8, interpret=True))
-        np.testing.assert_array_equal(ref, got)
+        np.testing.assert_array_equal(_xla_along(f, -1),
+                                      _triton_along(f, -1, tile_q=8))
+
+
+def test_bestfirst_negative_values_exact():
+    """The bound ``geom^2 + min f[chunk]`` also holds for negative f."""
+    rng = np.random.default_rng(4)
+    f = rng.uniform(-500, 500, (5, 70)).astype(np.float32)
+    np.testing.assert_array_equal(_xla_along(f, -1), _triton_along(f, -1))
 
 
 def test_bestfirst_small_tile_lines_exact():
-    """The VMEM-aware tile shrink (long axes get smaller line tiles) must
-    stay exact — cover non-default tile_lines in interpret mode."""
-    from voxelized_geometry_tools_tpu.kernels import edt_pallas
-    from voxelized_geometry_tools_tpu.ops import edt as edt_ops
+    """Tile shapes other than the defaults must stay exact, including a
+    q tile wider than the chunk."""
     rng = np.random.default_rng(5)
     f = np.where(rng.random((8, 96, 300)) < 0.02, 0.0, np.inf)
     f[0, 0, 17] = 0.0
-    ref = np.asarray(edt_ops._parabolic_envelope_last(jnp.asarray(f, jnp.float32)))
-    for tl in (256, 512):
-        got = np.asarray(edt_pallas.parabolic_envelope_last_pallas_bestfirst(
-            jnp.asarray(f, jnp.float32), tile_lines=tl, tile_q=64,
-            interpret=True))
-        np.testing.assert_array_equal(ref, got)
-
-
-def test_windowed_kernel_exact_vs_oracle():
-    """The windowed kernel (backend='pallas-windowed') was the one variant
-    without an oracle test. Covers non-multiple line counts so the LINE
-    padding (0.0 — an inf pad would pin padded lanes' outputs at inf and
-    defeat the early exit tile-wide) is exercised, and f containing +inf
-    (empty lines of a binary-seeded EDT)."""
-    rng = np.random.default_rng(77)
-    for lines, n in [(5, 48), (260, 33), (64, 160)]:
-        f = (rng.random((lines, n)).astype(np.float32) * 100.0)
-        f[rng.random((lines, n)) < 0.3] = np.inf
-        f[:, 0] = 0.0  # keep at least one finite candidate per line
-        ref = np.asarray(edt._parabolic_envelope_last(jnp.asarray(f), 64))
-        out = np.asarray(edt_pallas.parabolic_envelope_last_pallas_windowed(
-            jnp.asarray(f), tile_lines=128, tile_q=16, interpret=True))
-        np.testing.assert_array_equal(ref, out)
+    f = f.astype(np.float32)
+    ref = _xla_along(f, -1)
+    for tl, tq in ((256, 16), (32, 64)):
+        np.testing.assert_array_equal(
+            ref, _triton_along(f, -1, tile_lines=tl, tile_q=tq))
 
 
 def test_all_kernels_exact_with_line_padding():
-    """Line counts that do NOT divide tile_lines force padded lanes; every
+    """Line counts that do NOT divide tile_lines force padded lanes; the
     kernel must stay exact on the real lanes regardless of pad values."""
     rng = np.random.default_rng(78)
     f = rng.random((7, 96)).astype(np.float32) * 50.0
     f[rng.random((7, 96)) < 0.5] = np.inf
     f[:, 11] = 0.0
-    ref = np.asarray(edt._parabolic_envelope_last(jnp.asarray(f), 64))
-    for fn, kw in [
-            (edt_pallas.parabolic_envelope_last_pallas,
-             dict(tile_lines=128)),
-            (edt_pallas.parabolic_envelope_last_pallas_windowed,
-             dict(tile_lines=128, tile_q=16)),
-            (edt_pallas.parabolic_envelope_last_pallas_bestfirst,
-             dict(tile_lines=128, tile_q=16))]:
-        out = np.asarray(fn(jnp.asarray(f), interpret=True, **kw))
-        np.testing.assert_array_equal(ref, out)
+    np.testing.assert_array_equal(_xla_along(f, -1),
+                                  _triton_along(f, -1, tile_lines=128))
+
+
+def test_tile_sizes_must_be_powers_of_two():
+    with pytest.raises(ValueError, match="power of two"):
+        edt_triton.envelope_along_axis(jnp.zeros((4, 8)), -1, tile_q=24,
+                                       interpret=True)
+
+
+@pytest.fixture
+def gpu_resolution(monkeypatch):
+    """Make ``auto`` resolve as on a GPU, with the kernel interpreted."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(
+        edt_triton, "envelope_along_axis",
+        functools.partial(edt_triton.envelope_along_axis, tile_q=16,
+                          tile_lines=8, interpret=True))
+
+
+def test_resolve_edt_backend(monkeypatch):
+    assert edt._resolve_edt_backend("auto") == "xla"   # CPU here
+    assert edt._resolve_edt_backend("xla") == "xla"
+    assert edt._resolve_edt_backend("triton") == "triton"
+    with pytest.raises(ValueError, match="Unknown EDT backend"):
+        edt._resolve_edt_backend("pallas-windowed")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert edt._resolve_edt_backend("auto") == "triton"
+    assert edt._resolve_edt_backend("xla") == "xla"
+
+
+def test_squared_edt_pallas_matches_xla(gpu_resolution):
+    """The full 3-D EDT through the kernel's passes (one middle-axis pass,
+    one last-axis pass) equals the XLA backend."""
+    rng = np.random.default_rng(7)
+    seed = jnp.asarray(rng.uniform(size=(24, 17, 33)) < 0.1)
+    np.testing.assert_array_equal(
+        np.asarray(edt.squared_edt(seed, backend="xla")),
+        np.asarray(edt.squared_edt(seed, backend="auto")))
+
+
+def test_squared_edt_pallas_empty_and_full(gpu_resolution):
+    empty = jnp.zeros((4, 5, 6), bool)
+    assert bool(jnp.all(jnp.isinf(edt.squared_edt(empty))))
+    full = jnp.ones((4, 5, 6), bool)
+    assert bool(jnp.all(edt.squared_edt(full) == 0.0))
+
+
+def test_signed_distance_and_streamed_through_kernel(gpu_resolution):
+    """The stacked two-field pass and the slab-streamed pipeline both run
+    the kernel per pass and stay bit-identical to XLA."""
+    rng = np.random.default_rng(9)
+    filled = jnp.asarray(rng.uniform(size=(12, 10, 20)) < 0.2)
+    want = np.asarray(edt.signed_distance_from_filled_mask(
+        filled, 0.1, backend="xla"))
+    np.testing.assert_array_equal(
+        want, np.asarray(edt.signed_distance_from_filled_mask(filled, 0.1)))
+    np.testing.assert_array_equal(
+        want, np.asarray(edt.signed_distance_from_filled_mask_streamed(
+            filled, 0.1, slab=4)))

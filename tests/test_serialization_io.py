@@ -228,7 +228,7 @@ def test_export_index_map_uint8_flags():
 def test_viz_non_uniform_voxel_sizes():
     """Marker scale and cell centers honor per-axis voxel sizes
     (ros_interface.hpp:92-148 uses VoxelSizes()/
-    GridIndexToLocationInGridFrame) — VERDICT round-2 weak #5."""
+    GridIndexToLocationInGridFrame)."""
     from voxelized_geometry_tools_tpu import GridSpec
     from voxelized_geometry_tools_tpu.io import viz
     spec = GridSpec.from_voxel_sizes((0.5, 1.0, 2.0), (2, 2, 2))

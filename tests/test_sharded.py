@@ -304,8 +304,7 @@ def test_sharded_render_pair_table_matches(mesh8):
 
 def test_sharded_carve_reduce_scatter_matches(mesh8):
     """reduce='scatter' (psum_scatter to Z-slab-sharded tracking grids —
-    per-device collective work scales with the shard, round-3 VERDICT weak
-    #4) must produce the same logical grids as the replicated reduce and
+    per-device collective work scales with the shard) must produce the same logical grids as the replicated reduce and
     the single-device carve, for both a fixed run_axis and 'split'."""
     rng = np.random.default_rng(41)
     spec = GridSpec.from_voxel_counts(0.25, (16, 16, 16))
@@ -381,7 +380,7 @@ def test_sharded_carve_run_axis_auto_eager(mesh8):
 
 @pytest.mark.slow
 def test_grid_sharded_slab_table_matches_single_device(mesh8):
-    """Slab-local corner table (round-4 VERDICT #2): the grid-sharded
+    """Slab-local corner table: the grid-sharded
     renderer with ``corner_rows`` must reproduce the single-chip
     corner-table march (ulp tolerance — different XLA programs fuse the
     identical interpolation expression differently), for slab axes both
@@ -474,3 +473,46 @@ def test_grid_sharded_slab_table_guards(mesh8):
     with pytest.raises(TypeError, match="SlabCornerTable"):
         sharded.sharded_render_depth_grid_sharded(
             sdf, camera, mesh8, grid_axis=0, corner_rows=table.rows)
+
+
+@pytest.mark.parametrize("grid_sharded", [False, True])
+def test_sharded_render_with_distance(mesh8, grid_sharded):
+    """``with_distance`` adds each ray's final SDF sample, so a sharded
+    render can be held to ``render.compare_with_plain_march``; the depth
+    is the one the call returns without it."""
+    from voxelized_geometry_tools_tpu.ops import sdf_query
+    spec = GridSpec.from_voxel_counts(0.25, (16, 16, 16))
+    filled = np.zeros(spec.counts, bool)
+    filled[6:10, 6:10, 6:10] = True
+    sdf = edt.extract_signed_distance_field(filled, spec, None)
+    pose = transforms.isometry_from_translation((2.0, 2.0, -3.0))
+    camera = render.PinholeCamera.create(pose, width=24, height=16,
+                                         focal=20.0)
+    if grid_sharded:
+        rows = sharded.sharded_build_corner_table(sdf, mesh8, grid_axis=0)
+
+        def run(**kw):
+            return sharded.sharded_render_depth_grid_sharded(
+                sdf, camera, mesh8, grid_axis=0, num_steps=32,
+                corner_rows=rows, **kw)
+        single = render.sphere_trace(
+            sdf, *render.camera_rays(camera), num_steps=32,
+            corner_table=sdf_query.build_corner_table(sdf),
+            early_exit=True, tail_chunks=1)
+    else:
+        def run(**kw):
+            return sharded.sharded_render_depth(sdf, camera, mesh8,
+                                                num_steps=32, **kw)
+        single = render.render_depth(sdf, camera, num_steps=32)
+    depth, distance = jax.jit(lambda: run(with_distance=True))()
+    assert depth.shape == distance.shape == (16, 24)
+    np.testing.assert_array_equal(np.asarray(depth),
+                                  np.asarray(jax.jit(run)()))
+    hit = np.asarray(depth) < 99.0
+    np.testing.assert_array_equal(hit, np.asarray(single.hit))
+    np.testing.assert_allclose(np.asarray(distance)[hit],
+                               np.asarray(single.distance)[hit], atol=1e-6)
+    agreement = render.compare_with_plain_march(
+        single, render.RenderResult(depth, hit, None, distance),
+        spec.resolution)
+    assert agreement.ok, agreement.describe()

@@ -34,16 +34,21 @@ def test_phase_timer_failed_phase_records_nothing():
     assert "bad" not in timer.times()
 
 
-def test_force_materialize_skips_tracers():
+def test_phase_timer_under_tracing():
+    """Inside jit the phase outputs are tracers: waiting on them must be a
+    no-op, not a crash, and the phase still records a time."""
     import jax
-    from voxelized_geometry_tools_tpu.utils import force_materialize
+    timer = PhaseTimer()
 
     @jax.jit
     def f(v):
-        force_materialize(v)  # must be a no-op under tracing, not a crash
-        return v * 2.0
+        with timer.phase("traced") as outs:
+            w = v * 2.0
+            outs.append(w)
+        return w
 
     assert float(f(jnp.ones(3))[0]) == 2.0
+    assert timer.times()["traced"] >= 0.0
 
 
 def test_trace_noop():
@@ -115,8 +120,8 @@ def test_public_modules_type_hints_resolve():
     annotation naming a type the module never imports is harmless at
     runtime under `from __future__ import annotations` but raises the
     moment any introspection tool (IDE, pydantic, docs) resolves it
-    (round-4 VERDICT hygiene item: ops/map_ops.py annotated with an
-    unimported OccupancyComponentMap)."""
+    (ops/map_ops.py was once annotated with an unimported
+    OccupancyComponentMap)."""
     import importlib
     import inspect
     import pkgutil

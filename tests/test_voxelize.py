@@ -331,7 +331,7 @@ def test_columns_bit_exact_with_max_steps(max_steps):
     """A user max_steps is a per-ray VOXEL budget on both paths (the walk's
     DDA step budget); the column path truncates runs at the exact voxel the
     walk's budget would expire at, including the walk's round-up to whole
-    64-step segments (ADVICE round-2 medium #1)."""
+    64-step segments)."""
     rng = np.random.default_rng(17)
     spec = GridSpec.from_voxel_counts(0.05, (20, 24, 28))
     o = rng.uniform(0.2, 0.9, 3)

@@ -1,9 +1,9 @@
-"""voxelized_geometry_tools_tpu: a TPU-native differentiable voxel geometry
+"""voxelized_geometry_tools_tpu: an accelerator-native differentiable voxel geometry
 engine (JAX / XLA / Pallas / shard_map).
 
 A from-scratch reimplementation of the capabilities of
-``calderpg/voxelized_geometry_tools`` (C++17/CUDA/OpenCL, reference mounted at
-/root/reference) designed TPU-first:
+``calderpg/voxelized_geometry_tools`` (C++17/CUDA/OpenCL) designed
+accelerator-first:
 
 * maps are functional pytrees of dense channel arrays (no cell atomics),
 * dense passes (EDT sweeps, ray carving, fusion filtering) are vectorized

@@ -1,6 +1,6 @@
 """Dense voxel-grid core: static geometry spec + functional index math.
 
-This module is the TPU-native replacement for the reference's external
+This module is the accelerator-native replacement for the reference's external
 ``common_robotics_utilities::voxel_grid::VoxelGridBase`` (the interface surface
 the reference consumes is enumerated in SURVEY.md section 2.12b). Instead of a
 mutable C++ class hierarchy, a grid here is:

@@ -1,6 +1,6 @@
 """Voxel map containers: the four occupancy cell layouts + the SDF container.
 
-TPU-native redesign of the reference's map classes:
+Accelerator-native redesign of the reference's map classes:
 
 * ``OccupancyMap``                         (occupancy_map.hpp:65-217)
 * ``OccupancyComponentMap``                (occupancy_component_map.hpp:29-315)

@@ -6,14 +6,14 @@ zlib-compressed payload (``SDFZ/SDFR`` for SDFs — signed_distance_field.hpp:
 occupancy_map.cpp:116-193; ``TMGZ/TMGR`` for the tagged types; ``DMGZ/DMGR``
 for the dynamic spatial-hashed map).
 
-Payload layout is the VGT-TPU v2 format (documented below), *not* the
+Payload layout is the VGT v2 format (documented below), *not* the
 reference's byte layout: the reference's grid serializer lives in the external
 ``common_robotics_utilities`` package (not vendored here), so byte
 compatibility cannot be implemented or validated against it. The envelope,
 magics, compression flag, and round-trip semantics (frame, origin transform,
 locked flag, scalar-type tag) are preserved.
 
-VGT-TPU v2 payload (little-endian):
+VGT v2 payload (little-endian):
   u32   format version (2; v1 files — no component-metadata block — load)
   u32   map kind tag
   u8    scalar type tag (4 = f32, 8 = f64) — SDF only, mirrored from
@@ -147,7 +147,7 @@ def _map_kind_and_channels(m) -> Tuple[int, Dict[str, np.ndarray], dict]:
 
 
 def serialize(m) -> bytes:
-    """Serialize any map/SDF to the VGT-TPU v2 payload (DSH maps use their
+    """Serialize any map/SDF to the VGT v2 payload (DSH maps use their
     own kind-6 payload, core/dsh.py)."""
     from .dsh import DynamicSpatialHashedOccupancyMap
     if isinstance(m, DynamicSpatialHashedOccupancyMap):
@@ -181,7 +181,7 @@ def serialize(m) -> bytes:
 
 
 def deserialize(data: bytes):
-    """Deserialize a VGT-TPU payload (v1 or v2) into the matching map type.
+    """Deserialize a VGT payload (v1 or v2) into the matching map type.
 
     Kind 6 (DSH) is routed to the chunked-map deserializer, mirroring the
     generic loader's dispatch in the reference (ros_interface.hpp:597-600).

@@ -132,10 +132,11 @@ def compose(a: Array, b: Array) -> Array:
 def rotate_vector(m: Array, vectors) -> Array:
     """Apply only the rotation part to vector(s) of shape ``[..., 3]``.
 
-    Written elementwise rather than as a matmul: on TPU a ``[..., 3] @ [3, 3]``
-    contraction would be routed through the MXU at default (bfloat16) matmul
-    precision, silently quantizing coordinates. Elementwise VPU ops keep full
-    f32 precision and fuse into surrounding code.
+    Written elementwise rather than as a matmul: at default precision a
+    large float32 ``[..., 3] @ [3, 3]`` contraction may run on the GPU's
+    tensor cores as TF32 (about three decimal digits), silently quantizing
+    coordinates. Elementwise ops keep full float32 precision and fuse into
+    the surrounding code.
     """
     v = jnp.asarray(vectors)
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -148,7 +149,7 @@ def rotate_vector(m: Array, vectors) -> Array:
 
 def apply_isometry(m: Array, points) -> Array:
     """Apply an isometry to point(s) of shape ``[..., 3]`` (exact f32; see
-    :func:`rotate_vector` for why this avoids the MXU)."""
+    :func:`rotate_vector` for why this avoids a matmul)."""
     return rotate_vector(m, points) + m[:3, 3]
 
 

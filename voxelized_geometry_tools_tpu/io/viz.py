@@ -1,6 +1,6 @@
 """Visualization export: the RViz CUBE_LIST payloads without the ROS types.
 
-TPU-native equivalent of the reference ROS interface's display exporters
+Accelerator-native equivalent of the reference ROS interface's display exporters
 (/root/reference/include/voxelized_geometry_tools/ros_interface.hpp:92-411 and
 src/.../ros_interface.cpp:41-1065): every exporter returns a
 :class:`VoxelMarker` — grid-frame cell positions + RGBA colors + the marker
@@ -496,7 +496,7 @@ def export_index_map_for_display(omap, index_map,
 class TriangleMarker:
     """Data content of a TRIANGLE_LIST marker — the meshed counterpart of
     :class:`VoxelMarker` for surfaces extracted by
-    :func:`..ops.isosurface.extract_isosurface` (a TPU-native addition; the
+    :func:`..ops.isosurface.extract_isosurface` (an accelerator-native addition; the
     reference displays voxels only). ``points`` is ``[3*T, 3]`` world/grid
     positions, three consecutive rows per triangle, exactly the layout
     ``visualization_msgs::Marker.points`` expects for TRIANGLE_LIST."""

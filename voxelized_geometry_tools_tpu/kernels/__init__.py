@@ -1,11 +1,13 @@
-"""Hand-written Pallas TPU kernels for the dense-grid hot passes.
+"""Hand-written kernels for the dense-grid hot passes.
 
-These are *alternative backends* to the XLA formulations in
-:mod:`..ops` — every kernel here has an XLA twin and an exactness test
-against it, mirroring the reference's CPU/CUDA/OpenCL
-one-oracle-many-backends strategy (pointcloud_voxelization_test.cpp:275-295).
-BASELINE.md records which backend wins per op on real v5e hardware; the
-defaults in :mod:`..ops` follow those measurements.
+Each kernel is an *alternative backend* to an XLA formulation in
+:mod:`..ops`, with an exactness test against it, mirroring the reference's
+CPU/CUDA/OpenCL one-oracle-many-backends strategy
+(pointcloud_voxelization_test.cpp:275-295). A kernel stays only while it
+beats its XLA twin on the GPU; PERF.md records both times.
+
+* :mod:`.edt_triton` — the EDT's best-first envelope pass (Pallas, Triton
+  route).
 """
 
-from . import edt_pallas  # noqa: F401
+from . import edt_triton  # noqa: F401

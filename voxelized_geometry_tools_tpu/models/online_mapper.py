@@ -4,7 +4,7 @@ The reference library's primary production use is exactly this loop — each
 sensor frame is carved into the current occupancy map
 (`VoxelizePointClouds` with the running map as the static environment,
 pointcloud_voxelization_interface.hpp:246-292), and consumers query the
-refreshed SDF. This model packages that loop TPU-natively:
+refreshed SDF. This model packages that loop natively for the accelerator:
 
 * the occupancy state lives on device between frames (no host round trips),
 * the per-frame integrate step is jit-compiled once per cloud shape and

@@ -9,7 +9,7 @@
 //  * the "cpu-native" backend of the backend registry (the analogue of the
 //    reference's CPU voxelizer backend, providing graceful fallback when no
 //    accelerator is available),
-//  * the performance baseline that bench.py compares the TPU path against
+//  * the performance baseline that bench.py compares the device path against
 //    (the upstream reference library cannot be built here — it needs ROS +
 //    common_robotics_utilities — so this stands in as the optimized CPU
 //    implementation of the same algorithms),

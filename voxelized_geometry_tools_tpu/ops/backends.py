@@ -5,7 +5,7 @@ Equivalent of the reference's backend discovery/selection layer
 and src/.../pointcloud_voxelization.cpp:18-147): enumerate available
 backends, build a voxelizer for a specific one, or take the best available
 with graceful fallback. The preference order CUDA -> OpenCL -> CPU becomes
-ACCELERATOR (jax: TPU or any XLA device) -> NATIVE_CPU (multithreaded C++)
+ACCELERATOR (jax: a GPU or any XLA device) -> NATIVE_CPU (multithreaded C++)
 — and every backend passes the same oracle tests (tests/test_voxelize.py),
 mirroring the reference's one-oracle-many-backends strategy.
 
@@ -37,7 +37,7 @@ LoggingFunction = Optional[Callable[[str], None]]
 class BackendOption(enum.Enum):
     """pointcloud_voxelization.hpp:18-21 equivalents."""
     BEST_AVAILABLE = "best_available"
-    ACCELERATOR = "accelerator"   # jax/XLA device (TPU on hardware)
+    ACCELERATOR = "accelerator"   # jax/XLA device (a GPU on hardware)
     NATIVE_CPU = "native_cpu"     # multithreaded C++ runtime
 
 
@@ -79,7 +79,7 @@ def retrieve_option_or_default(options: Dict[str, int], key: str,
 
 
 class AcceleratorPointCloudVoxelizer:
-    """XLA/TPU voxelizer built on :mod:`.voxelize` (the analogue of the
+    """XLA voxelizer built on :mod:`.voxelize` (the analogue of the
     reference's device voxelizers, with the scatter-add carve replacing
     atomicAdd kernels).
 
@@ -163,7 +163,6 @@ class AcceleratorPointCloudVoxelizer:
             return voxelize_pointclouds(static_environment, filter_options,
                                         [], runtime_log_fn,
                                         max_steps=self._max_steps)
-        from ..utils import force_materialize
         spec = static_environment.spec
         run_axes = self._pick_run_axes(pointclouds,
                                        static_environment.origin_transform)
@@ -172,12 +171,12 @@ class AcceleratorPointCloudVoxelizer:
             static_environment.origin_transform, tuple(pointclouds), spec,
             run_axes)
         if runtime_log_fn is not None:
-            force_materialize(seen_free)
+            jax.block_until_ready(seen_free)
         t1 = time.monotonic()
         occupancy = self._filter(filter_options, seen_free, seen_filled,
                                  static_environment.occupancy)
         if runtime_log_fn is not None:
-            force_materialize(occupancy)
+            jax.block_until_ready(occupancy)
             runtime_log_fn(VoxelizerRuntime(t1 - t0, time.monotonic() - t1))
         return static_environment.replace(occupancy=occupancy)
 

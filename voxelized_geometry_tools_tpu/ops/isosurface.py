@@ -1,6 +1,6 @@
 """Isosurface extraction: SDF -> triangle mesh (marching tetrahedra).
 
-A TPU-native *addition* — the reference rasterizes meshes INTO voxel grids
+An accelerator-native *addition* — the reference rasterizes meshes INTO voxel grids
 (/root/reference/src/voxelized_geometry_tools/mesh_rasterizer.cpp) and
 exports voxel CUBE_LIST markers for display, but has no way back from a
 field to a surface mesh. This module closes the loop: occupancy -> EDT ->
@@ -8,7 +8,7 @@ field to a surface mesh. This module closes the loop: occupancy -> EDT ->
 display, collision geometry export, or downstream CAD/sim tools), the
 exact inverse of :mod:`.mesh`'s rasterizer.
 
-Design (TPU-first):
+Design (accelerator-first):
 
 * **Marching tetrahedra, not marching cubes.** Each lattice cube is split
   into 6 Kuhn tetrahedra sharing the main diagonal; a tet has only 16 sign
@@ -145,6 +145,15 @@ class IsoMesh(NamedTuple):
         return self.num_triangles > self.capacity
 
 
+def winding_gradient(grad_minv: Array, dv: Array) -> Array:
+    """Per-tet field gradient ``grad_minv @ dv`` (``[6, 3, 3]`` by
+    ``[6, 3, cy, cz]``). At default precision the GPU runs this batched
+    float32 product as TF32 (relative error ~5e-4, measured on an H100),
+    so it asks for full float32."""
+    return jnp.einsum("tij,tjyz->tiyz", grad_minv, dv,
+                      precision=lax.Precision.HIGHEST)
+
+
 def _extract_planes(d: Array, n_slabs: int, n_valid_slabs, x_base,
                     res, cap: int):
     """Core slab sweep over ``d`` ([>= n_slabs+1, ny, nz] value planes).
@@ -223,7 +232,7 @@ def _extract_planes(d: Array, n_slabs: int, n_valid_slabs, x_base,
         # Winding: flip so the face normal aligns with the tet's constant
         # field gradient (outward for an SDF: d increases off the surface).
         dv = (tv[:, 1:] - tv[:, :1])       # [6, 3, cy, cz]
-        g = jnp.einsum("tij,tjyz->tiyz", grad_minv, dv)  # [6, 3, cy, cz]
+        g = winding_gradient(grad_minv, dv)              # [6, 3, cy, cz]
         g = jnp.moveaxis(g, 1, -1)[:, :, :, None, :]     # [6, cy, cz, 1, 3]
         n = jnp.cross(tri[..., 1, :] - tri[..., 0, :],
                       tri[..., 2, :] - tri[..., 0, :])   # [6, cy, cz, 2, 3]

@@ -1,6 +1,6 @@
 """Triangle-mesh rasterization into voxel grids.
 
-TPU-native redesign of the reference's rasterizer
+Accelerator-native redesign of the reference's rasterizer
 (/root/reference/src/voxelized_geometry_tools/mesh_rasterizer.cpp). The
 reference loops serially over the voxels in each triangle's AABB index range;
 here every triangle gets a *static-size* candidate window (the max AABB index

@@ -1,6 +1,6 @@
 """Differentiable SDF raycasting / sphere tracing.
 
-This is new TPU-native capability built *on top of* the reference's query
+This is new accelerator-native capability built *on top of* the reference's query
 primitives (the reference has no renderer; its raycasting — cpu DDA carving —
 is reproduced in :mod:`.voxelize`): a sphere-traced depth/occupancy renderer
 over :class:`SignedDistanceField` grids in which **pixel gradients flow back
@@ -211,8 +211,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
     and CUDA/OpenCL (float) backends.):
 
     * ``corner_table``: a prebuilt :class:`sdf_query.CornerTable` — trilinear
-      samples cost ONE gather instead of eight (TPU gathers are issue-bound;
-      ~5x on v5e).
+      samples cost ONE gather instead of eight.
     * ``early_exit``: march under ``lax.while_loop`` and stop as soon as every
       ray has converged or left the grid, instead of a fixed ``num_steps``
       scan. Inference-only: while_loop does not support reverse-mode AD, so
@@ -230,7 +229,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
       silhouette-grazing few percent) are compacted to the front by a stable
       sort and the remaining budget is marched in ``tail_chunks`` ray chunks,
       each under its own while_loop — all-converged chunks cost one step
-      instead of dragging the whole wave to ``num_steps`` (TPU gathers are
+      instead of dragging the whole wave to ``num_steps`` (gathers are
       issued per active row, so wave width is the cost).
     * ``certified_miss`` (early_exit mode only): a bool array marking rays
       the caller PROVED cannot meet the surface anywhere in
@@ -272,8 +271,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
       ``fine_tail_chunk_width``, ``fine_sort_blocks``,
       ``fine_sort_arrays``). One iteration issues exactly one gather row
       per lane of its phase width, so ``sum(iters * width)`` is the
-      frame's gather-row count — the auditable input to the HBM-roofline
-      fraction (round-4 VERDICT #1). Counters ride the existing loop
+      frame's gather-row count. Counters ride the existing loop
       carries — no extra work per iteration; the extra OUTPUTS can shift
       XLA fusion, so results agree with the default path to the ulp
       rather than bitwise.
@@ -330,9 +328,9 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
             # The certificate only covers [t_init_valid_from, t_init]: a
             # ray entering the grid before the certifying march STARTED has
             # an uncertified window [t_enter, t_init_valid_from) that could
-            # contain a surface — use its own entry instead (ADVICE round-2
-            # medium #2: the fixed cone-start slack does not bound fine
-            # entries for distant grids / grazing faces).
+            # contain a surface — use its own entry instead (the fixed
+            # cone-start slack does not bound fine entries for distant
+            # grids / grazing faces).
             ti = jnp.where(
                 t_enter >= jnp.asarray(t_init_valid_from, jnp.float32),
                 ti, t0)
@@ -424,7 +422,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
             # it was a relaxed (unverified) one. Only relaxed steps are
             # ever reverted; revert re-steps are classic, so a field-
             # artifact negative sample cannot revert-loop. All extra work
-            # is VPU ops on the existing loop carry — the gather count per
+            # is elementwise ops on the existing loop carry — the gather count per
             # iteration is unchanged (one sample row per lane).
             i, t, alive, d_prev, d_cur, conv, last_adv, was_relaxed = carry
             pos = o + d_ray * t[..., None]
@@ -444,8 +442,8 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
             # crawlers; the nearest surface point is moving with them). A
             # head-on ray has d decaying at ~the full step size, so every
             # relaxed step would fail the overlap test and be reverted —
-            # measured on the bench sphere, uniformly relaxing INCREASED
-            # frame rows 6-19% (BASELINE.md round-5 relax sweep).
+            # on the bench sphere, uniformly relaxing INCREASED frame rows
+            # 6-19% (counted gather rows, not a time).
             tangential = (d_cur - d) < jnp.float32(0.5) * last_adv
             adv = jnp.where(tangential,
                             jnp.maximum(d * step_scale * jnp.float32(relax),
@@ -649,7 +647,7 @@ def sphere_trace(sdf: SignedDistanceField, origins: Array, dirs: Array,
         #     same expression on the same position);
         #   * rays whose final position left the grid (march escapes,
         #     grid-missers) provably read ``(inf, False)`` — validity is
-        #     pure VPU math (:func:`sdf_query.location_query_valid`).
+        #     pure elementwise math (:func:`sdf_query.location_query_valid`).
         # Real gathers remain only for in-grid non-converged rays:
         # certificate-retired blocks (never marched) and budget-capped
         # crawlers. Those are compacted needs-first at CONE-BLOCK
@@ -872,8 +870,8 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
     # center direction has the largest cosine against the face normal), so
     # the certificate covers them from their own entry; side-face/grazing
     # fine rays that enter earlier fall back to their own entry depth via
-    # the per-ray ``t_enter >= t_valid_from`` gate in :func:`sphere_trace`
-    # (round-2 ADVICE #2). A pre-entry slack start is counterproductive:
+    # the per-ray ``t_enter >= t_valid_from`` gate in :func:`sphere_trace`.
+    # A pre-entry slack start is counterproductive:
     # the Lipschitz offset correction makes pre-entry samples read
     # ``d(face) - |pre-entry distance|``, which kills the cone whenever the
     # slack exceeds the face's clearance.
@@ -1057,7 +1055,7 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
     if cone_refine and int(cone_refine) >= f:
         # Silently no-opping here would hide a schedule typo (e.g.
         # cone_refine=16 with coarse_factor=8) — mirror the divisibility
-        # ValueError below (ADVICE round-4 #2).
+        # ValueError below.
         raise ValueError(
             f"cone_refine={int(cone_refine)} must be smaller than "
             f"coarse_factor={f} (it is the FINER second-stage block size)")
@@ -1138,13 +1136,9 @@ def _cone_prepass(sdf: SignedDistanceField, camera: PinholeCamera,
 
 def gather_rows_from_stats(stats: dict,
                            gathers_per_sample: float = 1.0) -> float:
-    """Total HBM gather/scatter ROWS a rendered frame issued, from the
-    ``with_stats=True`` counters of :func:`render_depth` — the auditable
-    numerator of the achieved-roofline fraction (round-4 VERDICT #1):
+    """Total gather/scatter ROWS a rendered frame issued, from the
+    ``with_stats=True`` counters of :func:`render_depth`.
 
-    ``ideal_frame_s = gather_rows * ROW_NS`` where ``ROW_NS ~= 9.3e-9`` is
-    the measured v5e gather-engine issue rate per row at multi-million-row
-    batches, independent of row width 4-512 B (benchmarks/roofline.py).
     Every march iteration issues exactly one SDF sample per lane of its
     phase width (one gather row with a :class:`sdf_query.CornerTable`,
     ``gathers_per_sample=8`` for the raw trilinear stencil, 1 for the
@@ -1240,7 +1234,7 @@ def render_depth(sdf: SignedDistanceField, camera: PinholeCamera,
     each phase to the while-loop iteration counts it actually executed
     and the static widths it ran at (see :func:`sphere_trace`); feed it
     to :func:`gather_rows_from_stats` for the frame's total gather-row
-    count — the auditable numerator of the HBM-roofline fraction."""
+    count."""
     origins, dirs = camera_rays(camera)
     t_init = t_valid_from = sort_key = cert_miss = None
     stats = {} if with_stats else None
@@ -1275,7 +1269,7 @@ def render_depth(sdf: SignedDistanceField, camera: PinholeCamera,
             # highest, interior hits converge fast and score lowest. This
             # key comes free with the prepass march (an earlier cone-depth
             # edge-discontinuity key misclassified enough rays to measure
-            # SLOWER than head=1; BASELINE.md round-3 sweep).
+            # SLOWER than head=1 on the accelerator this was tuned on).
             sort_key = cone_slow
     if (early_exit and sort_key is not None
             and trace_kwargs.get("tail_chunks", 8) > 1):
@@ -1318,6 +1312,83 @@ def render_depth(sdf: SignedDistanceField, camera: PinholeCamera,
     return result
 
 
+class PlainMarchAgreement(NamedTuple):
+    """How a render agrees with the plain march (``early_exit=False``,
+    ``coarse_factor=0``) of the same field and camera; see
+    :func:`compare_with_plain_march`. Counts are pixels."""
+    plain_hits: int
+    other_hits: int
+    skipped: int          # converged plain hits the other render missed
+    off_depth: int        # common hits more than 2*thresh apart
+    grazers: int          # divergent pixels exempt as tangent grazers
+    unconverged: int      # plain hits that ran out of budget unconverged
+    max_depth_err: float  # over the common hits the depth rule checks
+
+    @property
+    def ok(self) -> bool:
+        return self.skipped == 0 and self.off_depth == 0
+
+    def describe(self) -> str:
+        return (f"hits plain {self.plain_hits} other {self.other_hits}; "
+                f"skipped {self.skipped}, off depth {self.off_depth} "
+                f"(max err {self.max_depth_err:.3g} m); exempt: grazers "
+                f"{self.grazers}, unconverged plain hits {self.unconverged}")
+
+
+# Half-width of the tangent-grazer band around the convergence threshold,
+# in voxels. A grazer's query dips to within float noise of the threshold
+# without crossing it; whether a sample lands in the dip depends on the
+# sample sequence. The largest excursion measured on the 512^3 sphere was
+# 0.0039 voxel (see _cone_prepass); the band is 20x that.
+GRAZER_BAND_VOXELS = 0.08
+
+
+def compare_with_plain_march(plain: RenderResult, other: RenderResult,
+                             resolution: float,
+                             surface_threshold: Optional[float] = None
+                             ) -> PlainMarchAgreement:
+    """The contract every faster render schedule keeps with the plain march
+    (host-side, on NumPy copies of the two results).
+
+    A certified start only moves a ray further along the monotone map
+    ``t -> t + d(t)``, so for every ray whose query CROSSES the threshold:
+
+    * every plain hit is a hit of the other render (no surface skipped);
+    * on common hits both converge on the same root, so depths agree
+      within twice the convergence threshold.
+
+    Two classes of pixel are outside that argument; they are counted and
+    exempt. Tangent grazers: the march that stopped nearer stopped with
+    its query within ``GRAZER_BAND_VOXELS`` of the threshold, in a
+    sub-threshold dip without a crossing, which another sample sequence
+    steps over to miss or to meet a surface behind it. Unconverged plain
+    hits: the plain march ran out of its step budget with the query
+    between ``thresh + band`` and the hit rule's ``2 * thresh``; it found
+    no surface, so there is nothing for the other render to keep."""
+    thresh = (0.25 * resolution if surface_threshold is None
+              else float(surface_threshold))
+    band = GRAZER_BAND_VOXELS * resolution
+    p_hit, o_hit = np.asarray(plain.hit), np.asarray(other.hit)
+    p_dist, o_dist = np.asarray(plain.distance), np.asarray(other.distance)
+    p_depth, o_depth = np.asarray(plain.depth), np.asarray(other.depth)
+    unconverged = p_hit & (p_dist > thresh + band)
+    converged = p_hit & ~unconverged
+    missed = converged & ~o_hit
+    missed_grazers = missed & (np.abs(p_dist - thresh) <= band)
+    common = converged & o_hit
+    err = np.abs(o_depth - p_depth)
+    apart = common & (err > 2.0 * thresh + 1e-6)
+    nearer_dist = np.where(p_depth <= o_depth, p_dist, o_dist)
+    apart_grazers = apart & (np.abs(nearer_dist - thresh) <= band)
+    return PlainMarchAgreement(
+        plain_hits=int(p_hit.sum()), other_hits=int(o_hit.sum()),
+        skipped=int((missed & ~missed_grazers).sum()),
+        off_depth=int((apart & ~apart_grazers).sum()),
+        grazers=int(missed_grazers.sum() + apart_grazers.sum()),
+        unconverged=int(unconverged.sum()),
+        max_depth_err=float(err[common & ~apart_grazers].max(initial=0.0)))
+
+
 def render_depth_batch(sdf: SignedDistanceField, cameras: PinholeCamera,
                        num_steps: int = 64, max_depth: float = 100.0,
                        surface_threshold: Optional[float] = None,
@@ -1335,17 +1406,14 @@ def render_depth_batch(sdf: SignedDistanceField, cameras: PinholeCamera,
     Multi-camera rigs are the production shape of this library's domain
     (the reference fuses 2-8 depth cameras per cycle). Naive view batching
     through :func:`sphere_trace` measures SLOWER than per-view calls (the
-    full-width early-exit wave couples to the worst ray across all views —
-    BASELINE.md round-2 finding d). This path avoids that coupling by
-    construction: the cone prepass runs per view (vmapped — cones are
-    ``rays/factor^2``), then ALL fine rays march under the block-tail
-    schedule (``head_steps=0``), where the slowness-sorted chunks
-    specialize by view automatically and there is no full-width phase to
-    couple. Per-ray sample sequences equal the per-view
-    :func:`render_depth` exactly. Measured (v5e, 512^3, 4x 640x480 views,
-    round-4 defaults): 70.9 ms one-march vs 72.5 ms for 4 sequential
-    per-view calls — 17.3 M rays/s, the per-view fixed costs (cone
-    prepass aside) amortize across the shared sorted tail.
+    full-width early-exit wave couples to the worst ray across all views).
+    This path avoids that coupling by construction: the cone prepass runs
+    per view (vmapped — cones are ``rays/factor^2``), then ALL fine rays
+    march under the block-tail schedule (``head_steps=0``), where the
+    slowness-sorted chunks specialize by view automatically and there is
+    no full-width phase to couple. Per-ray sample sequences equal the
+    per-view :func:`render_depth` exactly. One march against four
+    per-view calls: not measured on the H100.
 
     Inference-only (``early_exit``). ``coarse_factor`` must divide both
     image dimensions.

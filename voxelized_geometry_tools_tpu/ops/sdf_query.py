@@ -1,6 +1,6 @@
 """Differentiable SDF query operations.
 
-TPU-native redesign of the reference's ``SignedDistanceField`` query API
+Accelerator-native redesign of the reference's ``SignedDistanceField`` query API
 (/root/reference/include/voxelized_geometry_tools/signed_distance_field.hpp):
 
 * trilinear distance estimation with corrected cell-center distances
@@ -9,7 +9,7 @@ TPU-native redesign of the reference's ``SignedDistanceField`` query API
 * project-out-of-collision gradient walks (hpp:1111-1203)
 * local-extrema (watershed) map (hpp:382-538, 1205-1231)
 
-Design changes for TPU:
+Design changes for the accelerator:
 
 * every query is **batched**: point arguments accept ``[..., 3]`` arrays and
   all branching is ``jnp.where``-based, so queries jit, vmap, and
@@ -175,7 +175,7 @@ def location_query_valid(sdf: SignedDistanceField, p_world: Array,
     gather. With ``table_dtype`` (pass ``table.rows.dtype``) this replays
     the exact op sequence of :func:`estimate_location_distance_fast`'s
     predicate; with ``None``, :func:`estimate_location_distance`'s. Both
-    are pure VPU math (transform + floor + bounds check), so callers that
+    are pure elementwise math (transform + floor + bounds check), so callers that
     only need validity — e.g. the render final-sample skip, where every
     out-of-grid ray's answer is known to be ``(NaN, False)`` — avoid
     paying gather rows for it. Kept bit-identical to the sample functions
@@ -198,10 +198,10 @@ def location_query_valid(sdf: SignedDistanceField, p_world: Array,
 
 # -- Corner-brick acceleration table ----------------------------------------
 #
-# TPU gathers are issue-bound (~26 ns per gathered row on v5e, independent of
-# row width up to >= 32 B — measured), so the dominant cost of a trilinear
-# sample is the NUMBER of gathers, not the bytes. The 8 corner fetches of
-# `estimate_distance_interpolate` therefore cost 8x what they need to. A
+# A trilinear sample gathers 8 corner values from scattered addresses. Where
+# gathers are bound by their count rather than their bytes (as on the
+# accelerator this was designed on; not measured on the H100), the 8 corner
+# fetches of `estimate_distance_interpolate` cost 8x what they need to. A
 # CornerTable stores, for every *base* cell ``b``, the 8 corrected corner
 # distances of the cell pair ``(b, b+1)`` per axis as one contiguous 32-byte
 # row, so a trilinear sample becomes ONE row gather.
@@ -233,10 +233,9 @@ def build_corner_table(sdf: SignedDistanceField,
     ``SignedDistanceField<double>`` keeps full precision through the fast
     query/render path (hpp:1268-1269 parity). Structured as a ``fori_loop``
     over X planes writing into the preallocated ``[N, 8]`` table: a
-    monolithic stack-and-reshape of the whole grid makes XLA's TPU layout
-    pass take minutes to compile at 512^3, while the per-plane loop compiles
-    in seconds, runs at HBM write speed, and peaks at ~1 plane of extra
-    memory."""
+    monolithic stack-and-reshape of the whole grid is one giant
+    interleaving op, while the per-plane loop compiles quickly and peaks at
+    ~1 plane of extra memory."""
     d = jnp.asarray(sdf.distances)
     dtype = d.dtype if dtype is None else jnp.dtype(dtype)
     nx, ny, nz = d.shape
@@ -273,39 +272,30 @@ class CornerPairTable(NamedTuple):
     and ``b + (0,0,1)`` (z clamped to the grid edge) — occupies lanes
     ``(i % 4) * 2`` and ``+1`` of row ``i // 4``.
 
-    Why packed: a ``[N, 2]`` table forces XLA-TPU's layout assignment into
-    a ``T(8,128)`` lane-padded copy (2 -> 128 lanes = 64x memory — a
-    232 GB "allocation would exceed memory" at 768^3, measured round 4),
-    while minor-dim-8 arrays lay out compactly (the ``[N, 8]``
-    :class:`CornerTable` runs every bench). Gather cost is per ROW, not
-    per byte (~9.3 ns either way), so fetching the 32-byte packed row
-    costs the same as the old 8-byte pair row; the 2-of-8 lane extraction
-    is two masked 8-lane sums — pure VPU work that fuses into the gather
-    consumer.
+    Why packed: minor-dim-8 arrays lay out compactly on every backend,
+    while a ``[N, 2]`` minor dimension can be padded out by layout
+    assignment (it was, 64-fold, on the accelerator this was designed on);
+    the 2-of-8 lane extraction is two masked 8-lane sums that fuse into the
+    gather consumer.
 
     The large-grid middle ground: 2x the grid's memory (a 1024^3
-    CornerTable is ~8x = 34 GB and exceeds single-chip HBM; the pair table
-    plus the grid fits v5e's 16 GB) and FOUR row gathers per trilinear
-    sample instead of the raw path's eight — TPU gathers are issue-bound,
-    so sample cost halves. The assembled 8-corner vector is ordered
-    identically to :class:`CornerTable` rows, so the written interpolation
-    arithmetic is the same — eager query values match the brick table bit
-    for bit; under jit, XLA may fuse the two programs differently (ulp-
-    level drift, renders agree within the convergence threshold)."""
+    CornerTable is ~8x = 34 GB) and FOUR row gathers per trilinear sample
+    instead of the raw path's eight. The assembled 8-corner vector is
+    ordered identically to :class:`CornerTable` rows, so the written
+    interpolation arithmetic is the same — eager query values match the
+    brick table bit for bit; under jit, XLA may fuse the two programs
+    differently (ulp-level drift, renders agree within the convergence
+    threshold)."""
     rows: Array
 
 
 def build_corner_pair_table(sdf: SignedDistanceField,
                             dtype=None) -> CornerPairTable:
     """Build the z-pair table with pure shifts (no gathers), as a
-    ``fori_loop`` over X planes (a monolithic stack/reshape of the whole
-    grid hits the pathological XLA-TPU layout pass at large sizes — see
-    :func:`build_corner_table`). The loop carry is the packed 2-D
-    ``[N/4, 8]`` zeros array itself, exactly like build_corner_table's
-    ``[N, 8]`` carry: both a ``[N, 2]`` carry AND a final flat->2-D
-    reshape make XLA-TPU layout assignment materialize a lane-padded
-    ``T(8,128)`` copy (232 GB / 58 GB respectively at 768^3, measured),
-    while the zeros-carry fori_loop form lays out compactly."""
+    ``fori_loop`` over X planes (see :func:`build_corner_table`). The loop
+    carry is the packed 2-D ``[N/4, 8]`` zeros array itself, exactly like
+    build_corner_table's ``[N, 8]`` carry, so no ``[N, 2]`` intermediate or
+    final flat->2-D reshape gives layout assignment a padded copy to make."""
     d = jnp.asarray(sdf.distances)
     dtype = d.dtype if dtype is None else jnp.dtype(dtype)
     nx, ny, nz = d.shape
@@ -315,7 +305,7 @@ def build_corner_pair_table(sdf: SignedDistanceField,
     def plane(x):
         # Correct + z-edge-pad per plane (see build_corner_table: a full-
         # grid corrected+padded copy as a loop operand would push the build
-        # transient past HBM at exactly the 1024^3 scale this table
+        # transient past device memory at exactly the 1024^3 scale this table
         # exists for).
         pl = _pull_to_surface(
             lax.dynamic_slice(d, (x, 0, 0), (1, ny, nz))[0], half)
@@ -385,9 +375,8 @@ def estimate_location_distance_fast(
         # Four z-pair fetches at (bx|bx+1, by|by+1, bz), x/y neighbors
         # clamped onto the edge cell exactly as the brick build does. Each
         # fetch gathers the 8-lane PACKED row holding 4 pairs and extracts
-        # the 2 target lanes with masked sums (see CornerPairTable: the
-        # packing exists because a [N, 2] minor dim lane-pads 64x on TPU;
-        # the extraction is cheap VPU work fused into the gather).
+        # the 2 target lanes with masked sums (see CornerPairTable for why
+        # the rows are packed; the extraction fuses into the gather).
         bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
         bx1 = jnp.minimum(bx + 1, counts[0] - 1)
         by1 = jnp.minimum(by + 1, counts[1] - 1)

@@ -1,6 +1,6 @@
 """Topology computation: connected components, surfaces, holes and voids.
 
-TPU-native redesign of
+Accelerator-native redesign of
 /root/reference/include/voxelized_geometry_tools/topology_computation.hpp.
 
 The reference marks components with a serial BFS over a closure-parameterized

@@ -1,6 +1,6 @@
 """Pointcloud voxelization: multi-camera depth-cloud ray carving + fusion.
 
-TPU-native redesign of the reference's voxelization stack
+Accelerator-native redesign of the reference's voxelization stack
 (/root/reference/include/voxelized_geometry_tools/pointcloud_voxelization_interface.hpp,
 .../src/.../cpu_pointcloud_voxelization.cpp and the CUDA/OpenCL kernels in
 cuda_voxelization_helpers.cu:73-426):
@@ -11,7 +11,7 @@ cuda_voxelization_helpers.cu:73-426):
 * per-cloud *tracking grids* of ``{seen_free, seen_filled}`` int32 counters
   (replaces atomic ``CpuVoxelizationTrackingCell``) are built with an
   Amanatides–Woo DDA walk under ``lax.scan`` vmapped over rays, accumulated
-  with a single scatter-add per cloud — the contention-free TPU analogue of
+  with a single scatter-add per cloud — the contention-free analogue of
   ``atomicAdd`` carving,
 * the ``CountsSeenAs`` fusion filter (hpp:55-86 + cpu cpp:438-497) is a pure
   per-voxel map over stacked camera grids.
@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Callable, NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import jax
 import jax.numpy as jnp
@@ -344,7 +344,7 @@ def _balanced_chunk(n_rays: int, ray_chunk: int) -> int:
     ``<= ray_chunk`` chunks instead of padding the last one: 38400 rays
     at ray_chunk=16384 get 3 x 12800 instead of 2 x 16384 + 10752 dead
     lanes (+28% scatter rows — dropped lanes cost nearly full scatter
-    rate, BASELINE.md). Lane-aligned to 256. Results are bit-exact under
+    rate). Lane-aligned to 256. Results are bit-exact under
     any chunking (integer scatter-adds commute; sorting only regroups)."""
     n_rays = max(n_rays, 1)
     if n_rays <= ray_chunk:
@@ -352,6 +352,26 @@ def _balanced_chunk(n_rays: int, ray_chunk: int) -> int:
     n_chunks = -(-n_rays // ray_chunk)
     per = -(-n_rays // n_chunks)
     return min(-(-per // 256) * 256, ray_chunk)
+
+
+def grid_from_camera(grid_origin_transform: Array,
+                     camera_pose: Array) -> Array:
+    """Grid-from-camera isometry ``X_GW @ X_WC`` that every carve starts
+    from."""
+    return transforms.compose(
+        transforms.invert_isometry(grid_origin_transform), camera_pose)
+
+
+def _permuted_grid_origin(grid_origin_transform: Array,
+                          perm: Tuple[int, int, int]) -> Array:
+    """Origin transform of the grid frame whose axis ``i`` is the original
+    axis ``perm[i]``."""
+    p4 = np.zeros((4, 4), np.float32)
+    for new_ax, old_ax in enumerate(perm):
+        p4[new_ax, old_ax] = 1.0
+    p4[3, 3] = 1.0
+    return (jnp.asarray(grid_origin_transform, jnp.float32)
+            @ jnp.asarray(p4, jnp.float32).T)
 
 
 def raycast_pointcloud(spec: GridSpec, grid_origin_transform: Array,
@@ -369,8 +389,7 @@ def raycast_pointcloud(spec: GridSpec, grid_origin_transform: Array,
     if max_steps is None:
         max_steps = spec.num_x + spec.num_y + spec.num_z + 2
 
-    X_GW = transforms.invert_isometry(grid_origin_transform)
-    X_GC = X_GW @ cloud.origin_transform
+    X_GC = grid_from_camera(grid_origin_transform, cloud.origin_transform)
 
     n_rays = cloud.points.shape[0]
     n_total = spec.num_total
@@ -422,9 +441,8 @@ def _column_carve_chunk(spec: GridSpec, p_start: Array, start_idx: Array,
     """Column-marching DDA: one iteration per visited (x, y) COLUMN.
 
     The voxel walk (``_ray_visits``) pays one scatter element per visited
-    voxel — and the TPU scatter engine costs ~6.5 ns/element regardless of
-    locality, bin count, or dtype (measured, BASELINE.md), which is the
-    entire carve bottleneck. But a ray's visits within one xy column are a
+    voxel, and scatter elements were the entire carve bottleneck on the
+    accelerator this was designed on (not measured on the H100). But a ray's visits within one xy column are a
     CONTIGUOUS z run, so this walk advances column-by-column and emits the
     whole run as ONE ``[nz]``-wide masked row scatter-add (a 512-byte row
     costs ~10 ns — barely more than a scalar element). Element count drops
@@ -859,10 +877,8 @@ def raycast_pointcloud_columns(spec: GridSpec, grid_origin_transform: Array,
     (default; one masked ``[nz]`` row per column,
     :func:`_column_carve_chunk`) or ``"diff"`` (one scalar element per
     column + bucket-shift combine, :func:`_column_carve_chunk_diff`) —
-    identical results. Rows wins on v5e: its accumulator (8.4 MB at 128^3)
-    sits below the scatter engine's ~2M-bin cliff (7.3 -> 11.3 ns/element
-    past ~4M bins, measured), while the diff scheme's 10-bucket table lands
-    above it and gives back its element-count advantage.
+    identical results. Rows is the default; which is faster on the H100
+    is not measured.
 
     ``max_steps`` is a per-ray VISITED-VOXEL budget with semantics identical
     to :func:`raycast_pointcloud` (runs are truncated at the exact voxel
@@ -892,14 +908,9 @@ def raycast_pointcloud_columns(spec: GridSpec, grid_origin_transform: Array,
         # entry slab clip runs per permuted axis order here; its
         # accumulation order can differ from the original frame's at exact
         # boundary grazes — same tolerance class as the t ties.)
-        p4 = np.zeros((4, 4), np.float32)
-        for new_ax, old_ax in enumerate(perm):
-            p4[new_ax, old_ax] = 1.0
-        p4[3, 3] = 1.0
         pspec = GridSpec(tuple(spec.counts[a] for a in perm),
                         spec.resolution)
-        porigin = (jnp.asarray(grid_origin_transform, jnp.float32)
-                   @ jnp.asarray(p4, jnp.float32).T)
+        porigin = _permuted_grid_origin(grid_origin_transform, perm)
         inv = tuple(np.argsort(perm))
         grid = _raycast_columns_impl(pspec, porigin, cloud, max_steps,
                                      ray_chunk, tie_flags,
@@ -920,9 +931,8 @@ def _raycast_columns_split(spec: GridSpec, grid_origin_transform: Array,
     """Direction-independent column carve: each ray runs along ITS OWN
     dominant grid axis (``run_axis="split"``).
 
-    A single global ``run_axis`` degrades ~3.2x when the camera sits at
-    45 degrees to every axis (runs shorten toward one voxel — BASELINE.md
-    round-3 oblique table), while the reference's per-voxel DDA walk costs
+    A single global ``run_axis`` degrades when the camera sits at
+    45 degrees to every axis (runs shorten toward one voxel), while the reference's per-voxel DDA walk costs
     the same in any direction (cpu_pointcloud_voxelization.cpp:292-435).
     This path recovers direction independence for the FAST carve: rays are
     partitioned by ``argmax |dir|`` in the grid frame and each of the (up
@@ -935,8 +945,7 @@ def _raycast_columns_split(spec: GridSpec, grid_origin_transform: Array,
     whose ``m_est`` sorts them into leading all-dead chunks that exit the
     column while_loop after one alive-check — the three calls together do
     ~one call's carving work plus two extra chunk scans of dead lanes."""
-    X_GW = transforms.invert_isometry(grid_origin_transform)
-    X_GC = X_GW @ cloud.origin_transform
+    X_GC = grid_from_camera(grid_origin_transform, cloud.origin_transform)
     p_grid = transforms.apply_isometry(X_GC, cloud.points)
     d = p_grid - X_GC[:3, 3]
     finite = jnp.all(jnp.isfinite(cloud.points), axis=-1)
@@ -964,8 +973,7 @@ def _raycast_columns_impl(spec: GridSpec, grid_origin_transform: Array,
                           slab_axis_order=(0, 1, 2),
                           accumulate: str = "rows") -> TrackingGrid:
     nx, ny, nz = spec.counts
-    X_GW = transforms.invert_isometry(grid_origin_transform)
-    X_GC = X_GW @ cloud.origin_transform
+    X_GC = grid_from_camera(grid_origin_transform, cloud.origin_transform)
 
     n_rays = cloud.points.shape[0]
     if n_rays == 0:
@@ -1060,7 +1068,7 @@ def _policy_sample(pts_dev, k: int = 2048):
     rather than a fixed stride: structured depth-image clouds are laid out
     scanline-major, and a stride that divides (or resonates with) the row
     width samples one image COLUMN — a spatially biased subset that can
-    misestimate the dominant axis (ADVICE round-4 #4). A step at the
+    misestimate the dominant axis. A step at the
     golden fraction of N, forced coprime with N, is maximally
     non-resonant with every row width. Speed policy only: the column
     carve is bit-exact with the walk for ANY axis choice."""
@@ -1187,12 +1195,9 @@ def voxelize_pointclouds(
     # Phase sync points only exist outside a trace: under jit the whole
     # pipeline fuses and the per-phase VoxelizerRuntime is reported as
     # zeros (the caller times the fused call instead).
-    import jax.core as jax_core
-
     def _sync(x):
-        if runtime_log_fn is not None and not isinstance(x, jax_core.Tracer):
-            from ..utils import force_materialize
-            force_materialize(x)
+        if runtime_log_fn is not None:
+            jax.block_until_ready(x)  # a no-op on tracers
 
     t0 = time.monotonic()
     if pointclouds:

@@ -1,8 +1,9 @@
 """Device mesh helpers for multi-chip scaling.
 
 The reference's parallelism is shared-memory OpenMP + single-GPU offload
-(SURVEY.md section 2, parallelism table); the TPU-native equivalent is a
-``jax.sharding.Mesh`` over ICI with ``shard_map``/``pjit`` collectives."""
+(SURVEY.md section 2, parallelism table); the accelerator-native equivalent
+is a ``jax.sharding.Mesh`` over the devices with ``shard_map``/``pjit``
+collectives."""
 
 from __future__ import annotations
 

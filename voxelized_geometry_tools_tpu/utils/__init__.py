@@ -1,1 +1,1 @@
-from .profiling import PhaseTimer, force_materialize, trace  # noqa: F401
+from .profiling import PhaseTimer, trace  # noqa: F401
